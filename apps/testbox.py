@@ -77,13 +77,10 @@ def main(out_path: str = "testbox.png", debug_mode: int = 0) -> np.ndarray:
     registry, _library, gltf = load_testbox()
     renderer = rt.Renderer(registry, rt.RenderConfig(width=800, height=608))
     img = renderer.render_frame(build_single(gltf), debug_mode=debug_mode)
-    try:
-        from PIL import Image
+    from renderer_tpu.tools.png import write_png
 
-        Image.fromarray(img).save(out_path)
-        print(f"wrote {out_path} ({img.shape[1]}x{img.shape[0]})")
-    except ImportError:
-        print("PIL unavailable; skipping PNG dump")
+    write_png(out_path, img)
+    print(f"wrote {out_path} ({img.shape[1]}x{img.shape[0]})")
     return img
 
 

@@ -50,13 +50,10 @@ def main(out_path: str = "triangle.png", debug_mode: int = 3) -> np.ndarray:
     renderer = rt.Renderer(registry, config)
     scene = build_scene(meshes, material)
     img = renderer.render_frame(scene, debug_mode=debug_mode)
-    try:
-        from PIL import Image
+    from renderer_tpu.tools.png import write_png
 
-        Image.fromarray(img).save(out_path)
-        print(f"wrote {out_path} ({img.shape[1]}x{img.shape[0]})")
-    except ImportError:
-        print("PIL unavailable; skipping PNG dump")
+    write_png(out_path, img)
+    print(f"wrote {out_path} ({img.shape[1]}x{img.shape[0]})")
     return img
 
 

@@ -2,7 +2,7 @@
 //
 // The reference's make-ntex CLI compresses textures with the native intel_tex
 // BC7 encoder at slow settings with alpha-aware mode selection (reference:
-// make-ntex/src/main.rs:231-246); this is the TPU-build equivalent. ALL 8
+// make-ntex/src/main.rs:231-246); this is this renderer's equivalent. ALL 8
 // BC7 modes are considered; per 4x4 block the encoder keeps the lowest
 // reconstruction error of the tried set:
 //   mode 6  — 1 subset, 7.7.7.7+p endpoints, 4-bit indices (the solid RGBA

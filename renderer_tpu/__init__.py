@@ -1,11 +1,11 @@
-"""renderer_tpu — a TPU-native rebuild of Renderer II.
+"""renderer_tpu — a JAX + Pallas rebuild of Renderer II.
 
 The public API mirrors the reference crate root's curated re-export surface
 (reference: renderer/src/lib.rs:95-198) in spirit: Scene, Camera,
 CoordinateSystem, Mesh, VertexLibrary{Builder,Measurer}, Material +
 PbrMaterialParameters + AlphaMode, Renderer, RenderConfig, capacity
 constants. Vulkan bring-up types (Instance/PhysicalDevice/Device/Swapchain/
-Arenas/Uploader) have no TPU counterpart — `jax.devices()` and static shape
+Arenas/Uploader) have no counterpart here — `jax.devices()` and static shape
 planning replace them.
 """
 

@@ -1275,7 +1275,7 @@ def load_gltf(
 ) -> Gltf:
     """Load a .gltf or .glb file: meshes into `builder`, textures+materials
     into `registry`. (The reference's preload/upload split exists for VRAM
-    measurement, lib.rs:152-175; on TPU sizes are array shapes, so loading is
+    measurement, lib.rs:152-175; here sizes are array shapes, so loading is
     single-phase.)"""
     path = Path(path)
     raw = path.read_bytes()

@@ -2,9 +2,10 @@
 
 Parity: renderer/src/image_loading/ntex.rs — 1024-byte header (40-byte magic
 string, then w/h/depth/mips/VkFormat/block dims at offsets 992-1024), followed
-by tightly packed mip levels. The reference samples BC7 blocks directly on the
-GPU; TPUs cannot, so mips are decoded to RGBA8 numpy arrays at load time
-(BC7 via Pillow's native bcn decoder).
+by tightly packed mip levels. The reference samples BC7 blocks directly in
+its fixed-function sampler; this renderer's software sampler reads RGBA8, so
+mips are decoded at load time (BC7 through materials/bc7_jax.py, the same
+decoder the device-decode atlas path runs).
 """
 
 from __future__ import annotations
@@ -66,13 +67,17 @@ def decode_header(data: bytes) -> NtexHeader:
 
 
 def _decode_bc7(block_data: bytes, width: int, height: int) -> np.ndarray:
-    from PIL import Image
+    """BC7 blocks (row-major over the 4×4 block grid) → [h, w, 4] u8."""
+    from renderer_tpu.materials.bc7_jax import decode_blocks_np
 
-    # Pillow requires dimensions ≥ block size for bcn; pad and crop.
-    pw = max(4, (width + 3) // 4 * 4)
-    ph = max(4, (height + 3) // 4 * 4)
-    img = Image.frombytes("RGBA", (pw, ph), block_data, "bcn", (7, ""))
-    return np.asarray(img)[:height, :width].copy()
+    bw = max(1, (width + 3) // 4)
+    bh = max(1, (height + 3) // 4)
+    blocks = np.frombuffer(block_data, np.uint8).reshape(bh * bw, 16)
+    texels = decode_blocks_np(blocks)  # [nb, 16] u32 RGBA, texel = 4y + x
+    img = texels.reshape(bh, bw, 4, 4).transpose(0, 2, 1, 3)
+    img = np.ascontiguousarray(img).reshape(bh * 4, bw * 4)
+    rgba = img.astype("<u4").view(np.uint8).reshape(bh * 4, bw * 4, 4)
+    return rgba[:height, :width].copy()
 
 
 def decode(data: bytes) -> tuple[NtexHeader, list[np.ndarray]]:
@@ -141,10 +146,10 @@ def is_srgb_format(vk_format: int) -> bool:
 
 
 # -- decoded-texture cache (SURVEY §5.4: the reference ships textures
-# pre-compressed so startup never encodes; TPUs additionally can't SAMPLE BC7,
-# so the analog is shipping them pre-DECODED — a per-file npz of RGBA8 mips
-# keyed by (path, size, mtime), turning the ~1.4 s PIL BC7 decode of a Sponza
-# startup into a handful of mmap'd reads) ----------------------------------
+# pre-compressed so startup never encodes; the software sampler additionally
+# can't SAMPLE BC7, so the analog is shipping them pre-DECODED — a per-file npz
+# of RGBA8 mips keyed by (path, size, mtime), turning the BC7 decode of a
+# Sponza startup into a handful of mmap'd reads) ---------------------------
 
 def _cache_dir():
     import os

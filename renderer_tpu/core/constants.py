@@ -3,7 +3,7 @@
 Parity: these mirror the reference's shader constants, which are the single
 source of truth for both GLSL and Rust there
 (reference: renderer/shaders/glsl/constants.glsl:1-4, renderer/build.rs:35-50).
-On TPU they are *array dimensions*: every per-draw / per-material / per-joint
+Here they are *array dimensions*: every per-draw / per-material / per-joint
 uniform becomes a fixed-shape device array so the frame function compiles once.
 """
 

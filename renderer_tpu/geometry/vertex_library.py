@@ -10,7 +10,7 @@ a Mesh is a (vertex_offset, vertex_count, first_index, index_count) window.
 The measure-then-allocate discipline survives as a two-phase builder: callers
 can `measure` first (returning exact array sizes, mirroring
 VulkanArenaMeasurer, renderer/src/memory_measurement.rs:10-48) or just add
-meshes and let the builder grow — on TPU the "allocation" is just numpy.
+meshes and let the builder grow — here the "allocation" is just numpy.
 """
 
 from __future__ import annotations

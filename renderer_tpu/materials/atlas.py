@@ -1,8 +1,10 @@
-"""Texture atlas: the TPU version of the bindless 300-slot texture array.
+"""Texture atlas: the software-sampler version of the bindless 300-slot
+texture array.
 
 The reference binds up to 300 independent sampled images and lets fragment
 shaders index them dynamically (descriptors.rs:124-173, main.frag:35-47).
-TPUs have no texture units; sampling is arithmetic + gathers from HBM. All
+The software sampler has no texture units: sampling is arithmetic +
+gathers from device memory. All
 texture mips are packed into ONE [H, W] uint32 (RGBA8-packed) atlas so every
 texture fetch in a frame becomes a gather into a single array — the
 "descriptor table" is a per-(slot, mip) rectangle table.
@@ -157,7 +159,7 @@ def _plan_placements(shapes: dict[int, list[tuple[int, int]]]):
         cursor_x += w
         shelf_h = max(shelf_h, h)
     height = shelf_y + shelf_h
-    # round height to a sublane multiple
+    # round height to a multiple of 8 rows
     return placements, (height + 7) // 8 * 8
 
 

@@ -3,15 +3,14 @@ device.
 
 The reference samples BC7 natively all frame (the GPU's texture units
 decode per tap — renderer/src/image_loading.rs:83-237,
-physical_device.rs:18-19 list BC7 among the required formats). A TPU has no
-texture units, so this engine decodes ONCE at startup into the RGBA atlas —
-but decoding on the HOST means uploading the 4x-larger decoded texels
-through the host→device link (the dominant startup cost on
-bandwidth-constrained links, STARTUP.md). This module moves the decode to
-the device: upload the compressed block stream (1 byte/texel), decode every
-block in one jitted pass (vectorized bit plucking + integer interpolation —
-pure VPU work), and scatter straight into the packed atlas
-(materials/atlas_device.py).
+physical_device.rs:18-19 list BC7 among the required formats). The
+software sampler has no texture units, so this engine decodes ONCE at
+startup into the RGBA atlas — but decoding on the HOST means uploading the
+4x-larger decoded texels through the host→device link. This module moves
+the decode to the device: upload the compressed block stream (1
+byte/texel), decode every block in one jitted pass (vectorized bit plucking
++ integer interpolation — elementwise work), and scatter straight into the
+packed atlas (materials/atlas_device.py).
 
 Decode is EXACT by construction (the BC7 spec is integer-deterministic):
 bit-parity with Pillow's reference bcn decoder is pinned for every mode by

@@ -8,7 +8,7 @@ renderer/shaders/glsl/main.frag:35-57). Slots are freed when the last
 reference to a Material/Texture drops (weakref, mirroring the Rc-weak slot
 arrays of descriptors.rs:52-74).
 
-On TPU the texture array becomes one atlas (materials/atlas.py) and the
+Here the texture array becomes one atlas (materials/atlas.py) and the
 factors SoA becomes fixed-shape device arrays gathered by material id.
 """
 
@@ -210,7 +210,7 @@ class Material:
 
 class MaterialRegistry:
     """Owns texture slots, factors slots, and the packed SoA arrays the frame
-    function gathers from (the TPU analog of Descriptors,
+    function gathers from (the analog of Descriptors,
     renderer/src/renderer/descriptors.rs:76-85)."""
 
     def __init__(self) -> None:

@@ -1,11 +1,11 @@
-"""Multi-chip frame rendering over a jax.sharding.Mesh.
+"""Multi-device frame rendering over a jax.sharding.Mesh.
 
-The reference is strictly single-GPU (SURVEY.md §2.5); scaling here is a
-TPU-native addition. The natural decomposition for a tile rasterizer:
+The reference is strictly single-GPU (SURVEY.md §2.5); scaling here is an
+addition of this renderer. The natural decomposition for a tile rasterizer:
 
 - **tp (vertex parallel)**: the expanded vertex stream is sharded over
   devices; each device transforms VE/n vertices, then the (small) clip/attr
-  arrays are `all_gather`ed over ICI so every device holds the full
+  arrays are `all_gather`ed between devices so every device holds the full
   post-transform vertex set.
 - **sp (screen parallel)**: the framebuffer is sharded by tile rows; binning
   (the stage-1 row expansion is clipped to the shard's tile rows, so the
@@ -13,12 +13,13 @@ TPU-native addition. The natural decomposition for a tile rasterizer:
   deferred shading and tonemap all run entirely on the local shard — no
   communication. Rows are a contiguous band per device by default (image
   comes out pre-sharded for output) or ROUND-ROBIN interleaved
-  (`interleave=True`) for content load balance — measured 6.50× vs 3.57×
-  per-device work reduction at sp=8 on the bench frame (TIMINGS.md),
-  costing one final de-interleave reshuffle of the small u8 image.
-  Triangle setup stays replicated DELIBERATELY: it is dense O(T) VPU math
+  (`interleave=True`) for content load balance — 6.50× vs 3.57× less
+  binning work per device at sp=8 on the bench frame (work counted on the
+  CPU by tools/shard_workcount.py), costing one final de-interleave
+  reshuffle of the small u8 image.
+  Triangle setup stays replicated DELIBERATELY: it is dense O(T) math
   (~40 flops/triangle), cheaper recomputed everywhere than all_gathering
-  its 96 B/triangle output over ICI (compute-over-communication, the
+  its 96 B/triangle output between devices (compute-over-communication, the
   standard mesh-parallel tradeoff).
 
 Both ride one mesh axis ("sp"); a leading batch axis ("dp", multiple
@@ -127,16 +128,18 @@ def render_frame_sharded(
     tools/shard_workcount measures it). `interleave=True` assigns tile rows
     ROUND-ROBIN (device d owns rows {d + k·n}) — screen content spreads
     near-uniformly across shards, at the cost of one final de-interleave
-    reshuffle of the small u8 image (H·W·3 bytes over ICI)."""
+    reshuffle of the small u8 image (H·W·3 bytes between devices)."""
     axis = mesh.axis_names[0]
     n = mesh.shape[axis]
     assert config.tiles_y % n == 0, (
         f"tiles_y={config.tiles_y} must divide over {n} devices"
     )
     assert config.height % n == 0, f"height={config.height} must divide over {n} devices"
-    assert config.height == config.padded_height, (
-        "sharded rendering requires height to be a multiple of tile_h "
-        f"(height={config.height}, tile_h={config.tile_h})"
+    # one device renders the whole padded screen and crops like the
+    # single-device frame; bands over several devices must tile the image
+    assert (n == 1 and not interleave) or config.height == config.padded_height, (
+        "sharded rendering over several devices requires height to be a "
+        f"multiple of tile_h (height={config.height}, tile_h={config.tile_h})"
     )
     ve = geom["exp_src"].shape[0]
     assert ve % n == 0

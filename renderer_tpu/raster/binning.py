@@ -5,22 +5,20 @@ consumed by the whole GPU, renderer.rs:219-256); a software tile rasterizer
 instead needs per-tile work lists so each tile only touches triangles that
 overlap it (SURVEY.md §5.7 — the "scale axis" of this engine).
 
-TPU-native formulation: everything is dense XLA ops —
+Formulation: everything is dense XLA ops —
 1. per-triangle tile span from the setup bbox (pixel-center semantics),
 2. expansion to (tile, triangle) pairs with `jnp.repeat(total_repeat_length)`
    (static capacity, overflow-safe), then a tight edge-plane trivial-reject
    per pair (bbox spans overbin heavily — w-crossing triangles get a
    full-screen bbox from the clipless setup; the reject prunes ~90% of the
    bench scene's expanded pairs before they cost sort-payload scatter or
-   kernel DMA),
+   kernel reads),
 3. one stable sort by tile id,
 4. scatter of the kernel-consumed triangle setup rows into bin order → a
-   [B_ROWS, P] SoA array
-   where every tile's rows are CONTIGUOUS and every tile's start is
-   128-aligned (Mosaic DMA slices must be lane-tile aligned), so the raster
-   kernel streams each tile's list with plain sequential DMA,
-5. per-tile (start, count) via searchsorted, handed to the kernel as
-   scalar-prefetch arrays.
+   [B_ROWS, P] SoA array where every tile's rows are CONTIGUOUS, so a
+   raster program walks its tile's list with sequential reads,
+5. per-tile (start, count) via searchsorted, which each raster program
+   loads for its own tile.
 
 Pair order within a tile is triangle-stream order (stable sort), preserving
 the reference's later-submission-wins depth-tie semantics. The opaque class
@@ -39,28 +37,18 @@ import jax.numpy as jnp
 
 from renderer_tpu.raster.setup import BBOX_ROWS, TID_ROW, VALID_ROW
 
-# Per-tile bin starts are aligned to this (the Mosaic lane-tile size).
-ALIGN = 128
-
 # Binned-row layout: the raster kernels consume only the plane rows
 # (edges 0-8 with the eps band pre-folded into C — setup.py —, depth 9-11,
 # 1/w 12-14) and the triangle id. The bbox rows (binning input only), the
 # valid flag (zeroed planes can never cover: e' = 0 fails both the strict
 # test and the a/b-derived ownership tie-break), the eps row (folded into
 # C) and setup's padding rows never reach the binned buffer — cutting its
-# HBM footprint, the bin scatter and every kernel's bin-stream DMA by 33%
-# (24 → 16 rows), and 16 is the Mosaic sublane-tile multiple DMA slices
-# require. Indices below are positions in the SLIM [B_ROWS, Pp] buffer.
+# device-memory footprint, the bin scatter and every kernel's list reads by
+# 33% (24 → 16 rows). Indices below are positions in the SLIM [B_ROWS, Pp]
+# buffer.
 KEEP_ROWS = tuple(range(15)) + (TID_ROW,)
 B_ROWS = len(KEEP_ROWS)  # 16
 B_TID = 15
-
-
-def padded_capacity_classes(pair_capacity: int, n_tiles: int, n_classes: int) -> int:
-    # + one raster DMA chunk so the kernel's final over-read stays in bounds
-    from renderer_tpu.raster.raster_kernel import CHUNK
-
-    return pair_capacity + ALIGN * n_tiles * n_classes + CHUNK
 
 
 def _tile_spans(tri_data, bounds, n_classes, *, tiles_x, tiles_y,
@@ -114,7 +102,7 @@ def bin_triangles(
     production frame uses `bin_triangle_classes` — one sort for all alpha
     classes). `row_capacity` defaults to `pair_capacity` (tile rows per
     triangle never exceed its bbox pairs). Returns (binned [B_ROWS, Pp] f32
-    SoA — slim layout, see KEEP_ROWS —, starts [tiles] i32 (128-aligned),
+    SoA — slim layout, see KEEP_ROWS —, starts [tiles] i32,
     counts [tiles] i32, overflow_pairs i32 scalar)."""
     tc = tri_data.shape[1]
     if hi is None:
@@ -154,8 +142,8 @@ def bin_triangle_classes(
     row_stride: int = 1,  # static: stride between binned tile rows
 ):
     """Bin all alpha classes with ONE stable sort: pairs are keyed by
-    class * n_tiles + tile, so each (class, tile) segment lands contiguous and
-    128-aligned in one shared buffer — the raster kernels for each class index
+    class * n_tiles + tile, so each (class, tile) segment lands contiguous
+    in one shared buffer — the raster kernels for each class index
     the same binned array through their own starts/counts rows. The stream is
     ordered [opaque | masked | blended] (scene sort key), so classes are
     contiguous triangle-index ranges and pair/row truncation drops from the
@@ -201,7 +189,7 @@ def bin_triangle_classes(
     path.
 
     Returns (binned [B_ROWS, Pp] f32 SoA — slim layout, see KEEP_ROWS —,
-    starts [C, tiles] i32 (128-aligned), counts [C, tiles] i32,
+    starts [C, tiles] i32, counts [C, tiles] i32,
     overflow_pairs [C] i32, row_overflow i32 scalar, pair_demand i32 scalar,
     row_demand i32 scalar). The demands are the UNtruncated expansion
     totals — the sizing signals for pair_capacity / row_capacity (the
@@ -355,29 +343,14 @@ def bin_triangle_classes(
         key_sorted, (key_range + 1) * zbuckets).astype(jnp.int32)
     counts = ends_raw - starts_raw
 
-    # 128-aligned destination offsets per (class, tile) segment
-    padded_sizes = (counts + ALIGN - 1) // ALIGN * ALIGN
-    padded_starts = jnp.concatenate(
-        [jnp.zeros(1, jnp.int32), jnp.cumsum(padded_sizes)[:-1].astype(jnp.int32)]
-    )
-
-    p_total = padded_capacity_classes(pair_capacity, n_tiles, n_classes)
-    rank = pair_idx - jnp.concatenate(
-        [starts_raw, total.reshape(1)])[group_sorted]
-    dest = jnp.where(
-        group_sorted < n_keys,
-        jnp.concatenate(
-            [padded_starts, jnp.zeros(1, jnp.int32)])[group_sorted] + rank,
-        p_total - 1,  # dead pairs land on the last (padding) column
-    )
+    # live pairs sort ahead of dead ones, so the sorted order IS the bin
+    # layout: segment (class, tile) occupies columns [starts_raw, ends_raw)
 
     slim = tri_data[jnp.asarray(KEEP_ROWS)]  # [B_ROWS, Tc]
-    rows = slim.T[tri_sorted]  # [P, B_ROWS]
-    rows = rows.at[:, B_TID].set(tri_sorted.astype(jnp.float32))
-    # dead rows must not rasterize even via the dump column
-    rows = jnp.where((group_sorted < n_keys)[:, None], rows, 0.0)
-
-    binned = jnp.zeros((B_ROWS, p_total), jnp.float32).at[:, dest].set(rows.T)
+    rows = slim[:, tri_sorted]  # [B_ROWS, P]
+    rows = rows.at[B_TID].set(tri_sorted.astype(jnp.float32))
+    # dead columns are zero planes, which never rasterize
+    binned = jnp.where((group_sorted < n_keys)[None], rows, 0.0)
 
     # Per-class overflow: pair truncation keeps the first `pair_capacity`
     # pairs in triangle-stream order, so class c (pair-space range
@@ -392,7 +365,7 @@ def bin_triangle_classes(
     cap = jnp.int32(pair_capacity)
     overflow = jnp.maximum(e_c - cap, 0) - jnp.maximum(s_c - cap, 0)
     row_overflow = jnp.maximum(row_demand - jnp.int32(row_capacity), 0)
-    return (binned, padded_starts.reshape(n_classes, n_tiles),
+    return (binned, starts_raw.reshape(n_classes, n_tiles),
             counts.reshape(n_classes, n_tiles), overflow.astype(jnp.int32),
             row_overflow.astype(jnp.int32), total.astype(jnp.int32),
             row_demand.astype(jnp.int32))

@@ -11,19 +11,22 @@ a single winner-takes-all z-test:
 - **Masked** (alpha cutoff): the fragment shader may discard, so the raster
   result is "the nearest fragment whose alpha passes". Because failed
   fragments never write depth, the result is order-independent → capture the
-  top-K nearest candidate fragments per pixel (insertion sort in VMEM),
+  top-K nearest candidate fragments per pixel (insertion sort in registers),
   alpha-test them in the deferred stage, take the nearest passer.
 - **Blended**: src-alpha blending is order-dependent and depth-write prunes:
   a fragment is accepted iff its depth ≥ every previously accepted depth
   (submission order). Capture the accepted chain (up to K layers, in order)
   per pixel, shade each layer deferred, composite in order.
 
-Both kernels process their (binned, per-tile) triangle lists strictly
-sequentially — required for insertion/ordering — reading per-triangle scalars
-from an SMEM-staged copy of the list so the vector unit only ever touches
-[tile_h, tile_w] blocks. MSAA: every sample position maintains its own
-K-layer state, updated from ONE shared pass over the triangle list (one DMA
-stream for all samples).
+Both kernels walk their (binned, per-tile) triangle lists strictly in
+submission order — required for insertion/ordering. Like the opaque kernel
+(raster_kernel.py), a program owns one pixel block of a bin tile, keeps its
+[S, K, bh, bw] layer state in registers and reads each triangle's plane rows
+as scalars. MSAA: every sample position maintains its own K-layer state,
+updated from ONE shared pass over the triangle list.
+
+`rasterize_layers_reference` is the same computation in plain jnp/lax:
+the on-device reference, and the XLA route the kernel was timed against.
 """
 
 from __future__ import annotations
@@ -33,138 +36,103 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from renderer_tpu.raster.binning import B_ROWS, B_TID
-
-# Sequential triangle chunk staged into SMEM per DMA.
-LCHUNK = 128
-
-
-def _fragment(t_col, px3, py3, in_range):
-    """Edge/coverage/depth for ONE triangle whose plane rows (see setup.py)
-    are read as scalars via `t_col(k)`. No valid row: invalid/padding
-    columns have all-zero planes, which can never cover."""
-    # top-left fill rule; the f32 tolerance band is pre-folded into C
-    # (setup.py), ownership recomputed from the stored A, B signs (see
-    # raster_kernel).
-    def edge(a, b, c):
-        e = a * px3 + b * py3 + c
-        own = (a > 0.0) | ((a == 0.0) & (b > 0.0))
-        return (e > 0.0) | (own & (e >= 0.0))
-
-    cover = (
-        edge(t_col(0), t_col(1), t_col(2))
-        & edge(t_col(3), t_col(4), t_col(5))
-        & edge(t_col(6), t_col(7), t_col(8))
-        & in_range
-    )
-    z = t_col(9) * px3 + t_col(10) * py3 + t_col(11)
-    inv_w = t_col(12) * px3 + t_col(13) * py3 + t_col(14)
-    cover = cover & (inv_w > 0.0) & (z >= 0.0) & (z <= 1.0)
-    tid = t_col(B_TID).astype(jnp.int32)
-    return cover, z, tid
+from renderer_tpu.raster.binning import B_ROWS
+from renderer_tpu.raster.raster_kernel import (
+    NUM_WARPS,
+    _starts_plus,
+    block_shape,
+    fragment,
+    pixel_coords,
+    tile_rows,
+)
 
 
-def _make_layer_kernel(mode: str, n_layers: int, tile_h: int, tile_w: int,
-                       tiles_x: int, sample_positions: tuple,
-                       row_stride: int = 1):
-    assert mode in ("masked", "blended")
+def layer_update(mode: str, cover, z, tid, lz, lt, aux, cur_z):
+    """Apply one fragment (coverage, depth, id) of one sample to its
+    K-layer state: lz, lt are K-lists of [.., H, W] arrays, aux the
+    per-pixel candidate/accept count, cur_z the running depth floor.
+    Returns the updated (lz, lt, aux, cur_z)."""
+    n_layers = len(lz)
+    lz, lt = list(lz), list(lt)
+    c = cover & (z >= cur_z)
+    if mode == "masked":
+        # top-K nearest insertion; ≥ keeps later-submission-wins on equal
+        # depth. cur_z is the opaque depth floor. aux counts every candidate
+        # so aux > K flags pixels whose K-nearest capture may have dropped
+        # a passing fragment.
+        cz = jnp.where(c, z, -1.0)
+        ct = jnp.where(c, tid, -1)
+        for k in range(n_layers):
+            sw = cz >= lz[k]
+            lz[k], cz = jnp.where(sw, cz, lz[k]), jnp.where(sw, lz[k], cz)
+            lt[k], ct = jnp.where(sw, ct, lt[k]), jnp.where(sw, lt[k], ct)
+        return lz, lt, aux + c.astype(jnp.int32), cur_z
+    # blended — ordered accept: depth test vs the running chain depth,
+    # accepted fragments write depth (pipeline_parameters.rs blended
+    # inherits depth_write from opaque). A fragment past the K-layer
+    # capacity is dropped WITHOUT writing depth: the truncation may
+    # under-blend but never makes a dropped fragment occlude later geometry
+    # (the reference's fixed-function blending has no layer cap,
+    # pipelines.rs:112-132). aux counts all accepts, so aux > K flags
+    # saturated pixels.
+    for k in range(n_layers):
+        put = c & (aux == k)
+        lt[k] = jnp.where(put, tid, lt[k])
+        lz[k] = jnp.where(put, z, lz[k])
+    stored = c & (aux < n_layers)
+    return lz, lt, aux + c.astype(jnp.int32), jnp.where(stored, z, cur_z)
+
+
+def _layer_kernel(starts_ref, counts_ref, tri_ref, depth_in_ref,
+                  lz_ref, lt_ref, aux_ref, *, mode: str, n_layers: int,
+                  tile_h: int, tile_w: int, bh: int, bw: int, tiles_x: int,
+                  sample_positions: tuple, row_stride: int):
     n_s = len(sample_positions)
+    blocks_y = tile_h // bh
+    # bins are LOCAL to this shard's tile-row range (see raster_kernel)
+    bi = pl.program_id(0)
+    bj = pl.program_id(1)
+    lty = bi // blocks_y
+    tile = lty * tiles_x + bj // (tile_w // bw)
+    ty = lty * row_stride + starts_ref[counts_ref.shape[0]]
+    start = starts_ref[tile]
+    count = counts_ref[tile]
 
-    def kernel(starts_ref, counts_ref, tri_ref, depth_in_ref,
-               lz_ref, lt_ref, aux_ref, smem, sem):
-        # bins are LOCAL to this shard's tile-row range (see raster_kernel):
-        # grid step indexes starts/counts; the global row feeds pixel coords.
-        lty = pl.program_id(0)
-        ty = lty * row_stride + starts_ref[counts_ref.shape[0]]
-        tx = pl.program_id(1)
-        tile_index = lty * tiles_x + tx
+    x0 = (bj * bw).astype(jnp.float32)
+    y0 = (ty * tile_h + (bi % blocks_y) * bh).astype(jnp.float32)
+    ix = jax.lax.broadcasted_iota(jnp.int32, (bh, bw), 1).astype(jnp.float32)
+    iy = jax.lax.broadcasted_iota(jnp.int32, (bh, bw), 0).astype(jnp.float32)
+    px = [x0 + dx + ix for dx, _ in sample_positions]
+    py = [y0 + dy + iy for _, dy in sample_positions]
 
-        lz_ref[:] = jnp.full((n_s, n_layers, tile_h, tile_w), -1.0, jnp.float32)
-        lt_ref[:] = jnp.full((n_s, n_layers, tile_h, tile_w), -1, jnp.int32)
-        # aux: per-(sample, pixel) count of candidate (masked) / accepted
-        # (blended) fragments — may exceed n_layers, flagging truncated
-        # capture. The running depth starts from the (per-sample) solid depth.
-        aux_ref[:] = jnp.zeros((n_s, tile_h, tile_w), jnp.int32)
-        cur_z0 = depth_in_ref[:]  # [n_s, th, tw]
+    def tri_body(idx, state):
+        def t(k):
+            return tri_ref[k, idx]
 
-        tile_x0 = (tx * tile_w).astype(jnp.float32)
-        tile_y0 = (ty * tile_h).astype(jnp.float32)
-        iota_x = jax.lax.broadcasted_iota(
-            jnp.int32, (tile_h, tile_w), 1).astype(jnp.float32)
-        iota_y = jax.lax.broadcasted_iota(
-            jnp.int32, (tile_h, tile_w), 0).astype(jnp.float32)
-        px3 = [tile_x0 + dx + iota_x for dx, _ in sample_positions]
-        py3 = [tile_y0 + dy + iota_y for _, dy in sample_positions]
+        out = []
+        for s in range(n_s):
+            cover, z, tid = fragment(t, px[s], py[s])
+            out.append(tuple(layer_update(mode, cover, z, tid, *state[s])))
+        return tuple(out)
 
-        start = pl.multiple_of(starts_ref[tile_index], 128)
-        count = counts_ref[tile_index]
-        num_chunks = (count + LCHUNK - 1) // LCHUNK
-
-        def chunk_body(ci, cur_z):
-            dma = pltpu.make_async_copy(
-                tri_ref.at[:, pl.ds(start + ci * LCHUNK, LCHUNK)], smem, sem
-            )
-            dma.start()
-            dma.wait()
-            base = ci * LCHUNK
-
-            def tri_body(i, cur_z):
-                def t_col(k):
-                    return smem[k, i]
-
-                in_range = base + i < count
-                new_z = []
-                for s in range(n_s):
-                    cover, z, tid = _fragment(t_col, px3[s], py3[s], in_range)
-
-                    if mode == "masked":
-                        # top-K nearest insertion; ≥ keeps later-submission-
-                        # wins on equal depth. cur_z is the opaque depth
-                        # floor. aux counts every candidate so aux > K flags
-                        # pixels whose K-nearest capture may have dropped a
-                        # passing fragment.
-                        c = cover & (z >= cur_z[s])
-                        aux_ref[s] = aux_ref[s] + c.astype(jnp.int32)
-                        cz = jnp.where(c, z, -1.0)
-                        ct = jnp.where(c, tid, -1)
-                        for k in range(n_layers):
-                            lzk = lz_ref[s, k]
-                            ltk = lt_ref[s, k]
-                            sw = cz >= lzk
-                            lz_ref[s, k] = jnp.where(sw, cz, lzk)
-                            lt_ref[s, k] = jnp.where(sw, ct, ltk)
-                            cz = jnp.where(sw, lzk, cz)
-                            ct = jnp.where(sw, ltk, ct)
-                        new_z.append(cur_z[s])
-                    else:
-                        # ordered accept: depth test vs the running chain
-                        # depth, accepted fragments write depth
-                        # (pipeline_parameters.rs blended inherits depth_write
-                        # from opaque). A fragment past the K-layer capacity
-                        # is dropped WITHOUT writing depth: the truncation may
-                        # under-blend but never makes a dropped fragment
-                        # occlude later geometry (the reference's fixed-
-                        # function blending has no layer cap,
-                        # pipelines.rs:112-132). aux counts all accepts, so
-                        # aux > K flags saturated pixels.
-                        c = cover & (z >= cur_z[s])
-                        nacc = aux_ref[s]
-                        stored = c & (nacc < n_layers)
-                        for k in range(n_layers):
-                            put = c & (nacc == k)
-                            lt_ref[s, k] = jnp.where(put, tid, lt_ref[s, k])
-                            lz_ref[s, k] = jnp.where(put, z, lz_ref[s, k])
-                        aux_ref[s] = nacc + c.astype(jnp.int32)
-                        new_z.append(jnp.where(stored, z, cur_z[s]))
-                return jnp.stack(new_z)
-
-            return jax.lax.fori_loop(0, LCHUNK, tri_body, cur_z)
-
-        jax.lax.fori_loop(0, num_chunks, chunk_body, cur_z0)
-
-    return kernel
+    # aux: per-(sample, pixel) count of candidate (masked) / accepted
+    # (blended) fragments — may exceed n_layers, flagging truncated
+    # capture. The running depth starts from the (per-sample) solid depth.
+    state = tuple(
+        ([jnp.full((bh, bw), -1.0, jnp.float32)] * n_layers,
+         [jnp.full((bh, bw), -1, jnp.int32)] * n_layers,
+         jnp.zeros((bh, bw), jnp.int32),
+         depth_in_ref[s])
+        for s in range(n_s))
+    state = jax.lax.fori_loop(start, start + count, tri_body, state)
+    for s in range(n_s):
+        lz, lt, aux, _ = state[s]
+        for k in range(n_layers):
+            lz_ref[s, k] = lz[k]
+            lt_ref[s, k] = lt[k]
+        aux_ref[s] = aux
 
 
 @functools.partial(
@@ -172,7 +140,7 @@ def _make_layer_kernel(mode: str, n_layers: int, tile_h: int, tile_w: int,
     static_argnames=(
         "mode", "n_layers", "padded_height",
         "padded_width", "tile_h", "tile_w", "sample_positions", "interpret",
-        "row_stride",
+        "row_stride", "block",
     ),
 )
 def rasterize_layers(
@@ -191,50 +159,98 @@ def rasterize_layers(
     sample_positions: tuple = ((0.5, 0.5),),  # in-pixel positions (MSAA)
     row_stride: int = 1,  # global-row stride (interleaved sp sharding)
     interpret: bool = False,
+    block: tuple | None = None,  # (bh, bw) override of block_shape
 ):
     """Returns (layer_z [S,K,Hp,Wp] f32, layer_tid [S,K,Hp,Wp] i32,
     aux [S,Hp,Wp] i32 — per-(sample, pixel) candidate/accept count;
     aux > n_layers marks pixels whose capture was truncated). Layer order:
     masked = nearest first; blended = acceptance (submission) order."""
-    tiles_y = padded_height // tile_h
+    assert mode in ("masked", "blended")
+    assert binned.shape[0] == B_ROWS, binned.shape
     tiles_x = padded_width // tile_w
     n_s = len(sample_positions)
     assert depth_in.shape == (n_s, padded_height, padded_width), depth_in.shape
-
-    starts_plus = jnp.concatenate(
-        [starts.astype(jnp.int32), jnp.asarray(tile_row_offset, jnp.int32).reshape(1)]
+    bh, bw = block or block_shape(tile_h, tile_w, interpret)
+    assert tile_h % bh == 0 and tile_w % bw == 0, (tile_h, tile_w, bh, bw)
+    kernel = functools.partial(
+        _layer_kernel, mode=mode, n_layers=n_layers, tile_h=tile_h,
+        tile_w=tile_w, bh=bh, bw=bw, tiles_x=tiles_x,
+        sample_positions=tuple(sample_positions), row_stride=row_stride,
     )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(tiles_y, tiles_x),
-        in_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec((n_s, tile_h, tile_w), lambda ty, tx, s, c: (0, ty, tx)),
-        ],
-        out_specs=(
-            pl.BlockSpec((n_s, n_layers, tile_h, tile_w),
-                         lambda ty, tx, s, c: (0, 0, ty, tx)),
-            pl.BlockSpec((n_s, n_layers, tile_h, tile_w),
-                         lambda ty, tx, s, c: (0, 0, ty, tx)),
-            pl.BlockSpec((n_s, tile_h, tile_w), lambda ty, tx, s, c: (0, ty, tx)),
-        ),
-        scratch_shapes=[
-            pltpu.SMEM((B_ROWS, LCHUNK), jnp.float32),
-            pltpu.SemaphoreType.DMA(()),
-        ],
-    )
-    kernel = _make_layer_kernel(mode, n_layers, tile_h, tile_w, tiles_x,
-                                tuple(sample_positions), row_stride)
-    lz, lt, aux = pl.pallas_call(
+    sample_block = pl.BlockSpec((n_s, bh, bw), lambda i, j: (0, i, j))
+    layer_block = pl.BlockSpec((n_s, n_layers, bh, bw),
+                               lambda i, j: (0, 0, i, j))
+    layer_shape = (n_s, n_layers, padded_height, padded_width)
+    return pl.pallas_call(
         kernel,
-        grid_spec=grid_spec,
+        grid=(padded_height // bh, padded_width // bw),
+        in_specs=[pl.no_block_spec] * 3 + [sample_block],
+        out_specs=(layer_block, layer_block, sample_block),
         out_shape=(
-            jax.ShapeDtypeStruct((n_s, n_layers, padded_height, padded_width),
-                                 jnp.float32),
-            jax.ShapeDtypeStruct((n_s, n_layers, padded_height, padded_width),
-                                 jnp.int32),
+            jax.ShapeDtypeStruct(layer_shape, jnp.float32),
+            jax.ShapeDtypeStruct(layer_shape, jnp.int32),
             jax.ShapeDtypeStruct((n_s, padded_height, padded_width), jnp.int32),
         ),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS, num_stages=1),
         interpret=interpret,
-    )(starts_plus, counts.astype(jnp.int32), binned, depth_in)
+        name=f"raster_{mode}",
+    )(_starts_plus(starts, tile_row_offset), counts.astype(jnp.int32), binned,
+      depth_in)
+
+
+@functools.partial(
+    jax.jit,
+    static_argnames=(
+        "mode", "n_layers", "padded_height",
+        "padded_width", "tile_h", "tile_w", "sample_positions", "interpret",
+        "row_stride", "block",
+    ),
+)
+def rasterize_layers_reference(
+    binned, starts, counts, depth_in, *, mode: str, n_layers: int,
+    tile_row_offset=0, padded_height: int, padded_width: int,
+    tile_h: int = 32, tile_w: int = 128,
+    sample_positions: tuple = ((0.5, 0.5),), row_stride: int = 1,
+    interpret: bool = False, block: tuple | None = None,
+):
+    """rasterize_layers in plain jnp/lax (same signature; `interpret` and
+    `block` are ignored): one loop step per bin-list position, every tile at
+    once, the [S, K, Hp, Wp] layer state read and written in device memory
+    on every step."""
+    del interpret, block
+    assert mode in ("masked", "blended")
+    tiles_y = padded_height // tile_h
+    tiles_x = padded_width // tile_w
+    n_s = len(sample_positions)
+    px, py = pixel_coords(tile_row_offset, tiles_y=tiles_y, tile_h=tile_h,
+                          padded_width=padded_width, row_stride=row_stride,
+                          sample_positions=sample_positions)
+    st = starts.reshape(tiles_y, tiles_x)
+    ct = counts.reshape(tiles_y, tiles_x)
+
+    def body(i, state):
+        rows = tile_rows(binned, st, ct, i, tiles_y=tiles_y, tiles_x=tiles_x,
+                         tile_h=tile_h, tile_w=tile_w)
+
+        def t(k):
+            return rows[k]
+
+        out = []
+        for s in range(n_s):
+            cover, z, tid = fragment(t, px[s], py[s])
+            out.append(tuple(layer_update(mode, cover, z, tid, *state[s])))
+        return tuple(out)
+
+    hw = (padded_height, padded_width)
+    state = tuple(
+        ([jnp.full(hw, -1.0, jnp.float32)] * n_layers,
+         [jnp.full(hw, -1, jnp.int32)] * n_layers,
+         jnp.zeros(hw, jnp.int32),
+         depth_in[s])
+        for s in range(n_s))
+    state = jax.lax.fori_loop(0, jnp.max(counts, initial=0), body, state)
+    lz = jnp.stack([jnp.stack(st[0]) for st in state])
+    lt = jnp.stack([jnp.stack(st[1]) for st in state])
+    aux = jnp.stack([st[2] for st in state])
     return lz, lt, aux

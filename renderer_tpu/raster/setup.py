@@ -27,8 +27,7 @@ else C − eps), so the kernels' coverage test is
 `e' > 0 | (own ∧ e' ≥ 0)` with own recomputed from the stored A, B signs:
 bit-identical semantics to the explicit band test
 `e > eps | (e ≥ −eps ∧ own)`, with no per-pair eps row — which keeps the
-slim binned buffer (binning.KEEP_ROWS) at 16 rows, the Mosaic sublane-tile
-multiple.
+slim binned buffer (binning.KEEP_ROWS) at 16 rows.
 
 Output layout: one [ROWS=24, Tc] f32 SoA array; rows:
   0-8  : A0 B0 C0' A1 B1 C1' A2 B2 C2' (edge planes, C pre-shifted by ±eps;

@@ -61,10 +61,9 @@ def make_sampler(materials: dict, uv, lod_base, trilinear: bool = True,
     tests/test_srgb_filter_order.py.
 
     compute_dtype=jnp.bfloat16 runs the FILTER ARITHMETIC (tap blending,
-    sRGB decode) at bf16 — double VPU throughput on TPU for the shading-
-    dominated frame. Texel ADDRESSING (uv→texel, mip LOD from derivatives)
-    always stays f32: bf16's 8 mantissa bits cannot index a 1k-texel
-    texture. GPU samplers filter u8 taps at comparable internal precision."""
+    sRGB decode) at bf16 for the shading-dominated frame. Texel ADDRESSING
+    (uv→texel, mip LOD from derivatives) always stays f32: bf16's 8
+    mantissa bits cannot index a 1k-texel texture. GPU samplers filter u8 taps at comparable internal precision."""
     atlas = materials["atlas"]  # [AH,AW] u32
     table = materials["atlas_table"]  # [T,M,4] i32
     srgb = materials["atlas_srgb"]  # [T] i32
@@ -280,7 +279,8 @@ def interpolants(
     lp = jnp.stack([g0, g1, g2], axis=-1) * inv_gsum[..., None]
 
     def interp(attr):  # attr [VE,K] -> [...,H,W,K]
-        return jnp.einsum("...v,...vk->...k", lp, attr[vid])
+        return jnp.einsum("...v,...vk->...k", lp, attr[vid],
+                          precision=jax.lax.Precision.HIGHEST)
 
     uv = interp(vstage["uv"])
     draw = vstage["draw"][vid[..., 0]]  # [...,H,W]

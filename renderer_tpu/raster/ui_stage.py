@@ -9,7 +9,7 @@ Geometry). Fragment behavior parity with imgui.frag: clip-rect discard on
 screen coordinates (:28-33), tex_kind 1 = alpha-from-R font, 2 = RGBA
 modulate, else discard (:34-44).
 
-TPU shape: triangles are already 2D screen-space; the ordered-accept layer
+Shape: triangles are already 2D screen-space; the ordered-accept layer
 kernel (raster/layers.py "blended" mode, constant depth so every fragment
 passes GE and the chain is submission order) captures up to ui_layers
 fragments per pixel; each captured layer is shaded once per pixel with
@@ -24,10 +24,14 @@ shading) — tested in tests/test_ui_overlay.py."""
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 from renderer_tpu.raster import binning, layers, setup
 from renderer_tpu.raster.shade import make_sampler
+
+# f32 contractions stay f32 (a GPU may otherwise run them in TF32)
+_HI = jax.lax.Precision.HIGHEST
 
 TEX_KIND_FONT = 1
 TEX_KIND_RGBA = 2
@@ -126,8 +130,8 @@ def shade_ui_layer(
     inv_s = jnp.reciprocal(jnp.where(jnp.abs(s) > 1e-12, s, 1.0))
     lam = jnp.stack([g0, g1, g2], axis=-1) * inv_s[..., None]
 
-    uv = jnp.einsum("...v,...vk->...k", lam, ui["uv"][vid])
-    col = jnp.einsum("...v,...vk->...k", lam, ui["col"][vid])
+    uv = jnp.einsum("...v,...vk->...k", lam, ui["uv"][vid], precision=_HI)
+    col = jnp.einsum("...v,...vk->...k", lam, ui["col"][vid], precision=_HI)
 
     # analytic UV derivatives of the affine map (∂lam_i/∂x = a_i / s with
     # a_i from the edge vectors; Σ a_i = 0)
@@ -140,8 +144,8 @@ def shade_ui_layer(
          p[..., 1, 0] - p[..., 0, 0]], axis=-1,
     ) * inv_s[..., None]
     uvv = ui["uv"][vid]  # [H,W,3,2]
-    duv_dx = jnp.einsum("...v,...vk->...k", a, uvv)
-    duv_dy = jnp.einsum("...v,...vk->...k", b, uvv)
+    duv_dx = jnp.einsum("...v,...vk->...k", a, uvv, precision=_HI)
+    duv_dy = jnp.einsum("...v,...vk->...k", b, uvv, precision=_HI)
 
     cmd = ui["tri_cmd"][t]  # [H,W]
     crect = ui["clip"][cmd]  # [H,W,4]

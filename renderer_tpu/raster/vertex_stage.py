@@ -13,13 +13,13 @@ Parity: renderer/shaders/glsl/main.vert (static + skinned variants).
 
 All math is dense [VE, …] jnp — XLA fuses the gathers and the small einsums.
 
-Every position-affecting contraction is pinned to Precision.HIGHEST: TPU
-matmul units default to reduced (bf16-pass) f32 multiplication, which would
-wobble clip positions — visibly on geometry, and structurally on the
-integer tile spans that binning derives from them (bench.py's CPU-replay
-completeness verifier relies on the CPU and TPU programs producing the
-same pair counts). These contractions are a negligible FLOP share of the
-frame (contraction dims of 3-4 vs the raster/shade bulk).
+Every position-affecting contraction is pinned to Precision.HIGHEST: an
+accelerator may otherwise run f32 contractions at reduced precision (TF32
+on a GPU), which would wobble clip positions — visibly on geometry, and
+structurally on the integer tile spans that binning derives from them, so
+the GPU frame would no longer bin like the CPU oracle. These contractions
+are a negligible FLOP share of the frame (contraction dims of 3-4 vs the
+raster/shade bulk).
 """
 
 from __future__ import annotations

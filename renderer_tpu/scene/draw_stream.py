@@ -1,6 +1,6 @@
 """Draw-stream building: sorted draws → fixed-shape device arrays.
 
-This is the TPU analog of the reference's per-frame render_frame prologue:
+This is the analog of the reference's per-frame render_frame prologue:
 sort draws, merge consecutive identical (tag, joints) into instanced indirect
 commands, build the interleaved transform stream
 (reference: renderer/src/renderer.rs:215-256). Here the "indirect command
@@ -9,7 +9,7 @@ stream" becomes two things:
 - GeometryStream (cached per draw-list *shape*): expanded vertex / triangle
   index arrays. Expansion assigns every (draw, vertex) pair a slot so that
   instanced draws of the same mesh get distinct transformed vertices —
-  the TPU analog of per-instance vertex attributes.
+  the analog of per-instance vertex attributes.
 - frame arrays (rebuilt every frame, ~µs of numpy): per-draw transforms,
   normal matrices, material ids, joints offsets, debug ids, joint palette.
 
@@ -189,8 +189,7 @@ def build_geometry(draws: list[DrawParameters], max_triangles: int) -> GeometryS
     assert num_tris <= max_triangles, (
         f"scene has {num_tris} triangles, config.max_triangles={max_triangles}"
     )
-    # Capacity must cover whole raster DMA chunks (raster_kernel.CHUNK);
-    # quarter-pow2 buckets keep the dense setup math within 25% of the scene.
+    # quarter-pow2 buckets keep the dense setup math within 25% of the scene
     t_cap = min(_bucket_quarter_pow2(num_tris), _next_pow2(max_triangles))
     tri_v = np.zeros((t_cap, 3), np.int32)
     tri_v[:num_tris] = np.concatenate([opaque, masked, blended], axis=0)
@@ -399,7 +398,7 @@ def unpack_frame(packed: dict, morph_k: int = 0,
     """Inverse of pack_frame_arrays / pack_frame_blob on device values
     (slices and bitcasts are free under jit), plus the per-draw normal
     matrices — the closed-form cofactor inverse-transpose runs ON DEVICE
-    inside the jitted frame (16k tiny cross products are noise on a TPU but
+    inside the jitted frame (16k tiny cross products are noise on the device but
     milliseconds of numpy on the host). Accepts already-unpacked dicts
     unchanged. `morph_k` and `joint_cap` must match the pack_frame_blob
     call (static jit keys — they change the blob layout)."""

@@ -6,7 +6,7 @@ joints offset and vice versa (scene.rs:78-92). `allocate_joint_offset`
 bump-allocates mat4 ranges out of the shared joint palette (≤1024 joints,
 scene.rs:96-107).
 
-TPU-first draw stream: draws are stored as structure-of-arrays (transforms,
+Draw stream: draws are stored as structure-of-arrays (transforms,
 packed sort keys, material/joints columns) so the per-frame prologue — sort,
 instance-merge detection, frame-array packing — is pure vectorized numpy with
 no per-draw Python in the hot path (the reference merges 16,384 draws into

@@ -2,15 +2,16 @@
 
 The reference uploads Dear ImGui's font atlas as an R8_UNORM texture and the
 imgui fragment shader reads only `.r` as alpha (imgui_support.rs:52-99,
-imgui.frag:34-39 tex_kind 1). Here the glyph atlas is rasterized once from
-PIL's built-in bitmap font into an RGBA8 texture whose R channel is the glyph
-coverage, registered as a normal texture slot (TextureKind.LINEAR_COLOR — no
-sRGB decode on fonts).
+imgui.frag:34-39 tex_kind 1). Here the glyph atlas — Pillow's built-in
+bitmap font, baked once into `font_atlas.npz` by tools/bake_font.py — becomes
+an RGBA8 texture whose R channel is the glyph coverage, registered as a
+normal texture slot (TextureKind.LINEAR_COLOR — no sRGB decode on fonts).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from pathlib import Path
 
 import numpy as np
 
@@ -18,6 +19,7 @@ from renderer_tpu.materials.registry import MaterialRegistry, Texture, TextureKi
 
 ASCII_FIRST = 32
 ASCII_LAST = 126
+ATLAS_PATH = Path(__file__).with_name("font_atlas.npz")
 
 
 @dataclass
@@ -35,44 +37,20 @@ class Font:
     """One rasterized glyph atlas + per-character uv table."""
 
     def __init__(self) -> None:
-        from PIL import Image, ImageDraw, ImageFont
-
-        pil_font = ImageFont.load_default()
+        with np.load(ATLAS_PATH) as z:
+            coverage = z["coverage"]
+            origins, widths = z["origins"], z["widths"]
+            self.line_height = int(z["line_height"])
+        ah, aw = coverage.shape
         chars = [chr(c) for c in range(ASCII_FIRST, ASCII_LAST + 1)]
-
-        # measure
-        probe = Image.new("L", (64, 64))
-        draw = ImageDraw.Draw(probe)
-        boxes = {}
-        max_h = 1
-        for ch in chars:
-            x0, y0, x1, y1 = draw.textbbox((0, 0), ch, font=pil_font)
-            w = max(int(x1), 1)
-            h = max(int(y1), 1)
-            boxes[ch] = (w, h)
-            max_h = max(max_h, h)
-        self.line_height = max_h + 2
-
-        # rasterize one row per 16 glyphs
-        cols = 16
-        cell_w = max(w for w, _ in boxes.values()) + 1
-        rows = (len(chars) + cols - 1) // cols
-        img = Image.new("L", (cols * cell_w, rows * self.line_height), 0)
-        draw = ImageDraw.Draw(img)
         self.glyphs: dict[str, Glyph] = {}
-        aw, ah = img.size
-        for i, ch in enumerate(chars):
-            cx = (i % cols) * cell_w
-            cy = (i // cols) * self.line_height
-            draw.text((cx, cy), ch, fill=255, font=pil_font)
-            w, h = boxes[ch]
+        for ch, (cx, cy), w in zip(chars, origins, widths):
             self.glyphs[ch] = Glyph(
                 u0=cx / aw, v0=cy / ah, u1=(cx + w) / aw,
                 v1=(cy + self.line_height - 1) / ah,
-                width=w, height=self.line_height - 1, advance=w + 1,
+                width=int(w), height=self.line_height - 1, advance=int(w) + 1,
             )
 
-        coverage = np.asarray(img, np.uint8)
         rgba = np.zeros((*coverage.shape, 4), np.uint8)
         rgba[..., 0] = coverage  # alpha lives in R (R8 parity)
         rgba[..., 1] = rgba[..., 2] = coverage

@@ -2,7 +2,7 @@
 
 Deliberately written with different code paths than the renderer (per-pixel
 barycentric point-in-triangle loops instead of edge-plane kernels) so golden
-comparisons cross-validate the TPU implementation rather than echo it.
+comparisons cross-validate the JAX implementation rather than echo it.
 """
 
 from __future__ import annotations

@@ -62,10 +62,41 @@ def test_all_modes_bit_parity_fuzz():
             np.testing.assert_array_equal(ours[i], ref, f"mode {m} block {i}")
 
 
+def _pil_decode_bc7(block_data: bytes, width: int, height: int):
+    """The reference decoder (Pillow's bcn) for a whole BC7 image: the test
+    oracle of ntex._decode_bc7."""
+    from PIL import Image
+
+    # Pillow requires dimensions ≥ block size for bcn; pad and crop.
+    pw = max(4, (width + 3) // 4 * 4)
+    ph = max(4, (height + 3) // 4 * 4)
+    img = Image.frombytes("RGBA", (pw, ph), block_data, "bcn", (7, ""))
+    return np.asarray(img)[:height, :width]
+
+
+@needs_bcn
+def test_ntex_bc7_image_decode_matches_pillow():
+    """ntex's BC7 image decode (bc7_jax blocks + block-grid placement +
+    crop) equals Pillow's on random blocks of every mode at sizes that are
+    not multiples of the block size."""
+    from renderer_tpu.assets import ntex
+
+    rng = np.random.default_rng(5)
+    for h, w in ((13, 22), (4, 4), (2, 9), (1, 1)):
+        nb = max(1, -(-h // 4)) * max(1, -(-w // 4))
+        blocks = rng.integers(0, 256, (nb, 16), dtype=np.uint8)
+        m = rng.integers(0, 8, nb)
+        blocks[:, 0] = ((1 << m) | (blocks[:, 0] << (m + 1))) & 0xFF
+        np.testing.assert_array_equal(
+            ntex._decode_bc7(blocks.tobytes(), w, h),
+            _pil_decode_bc7(blocks.tobytes(), w, h), f"{h}x{w}")
+
+
 @needs_assets
+@needs_bcn
 def test_real_ntex_mips_bit_parity():
     """Real Sponza BC7 data (intel_tex 'slow' encoder output uses all 8
-    modes) must decode identically to the host (Pillow) mip decode."""
+    modes) must decode identically to Pillow's decode of the same mips."""
     from renderer_tpu.assets import ntex
 
     f = sorted((REF / "sponza/glTF").glob("*.ntex"))[0]
@@ -75,12 +106,8 @@ def test_real_ntex_mips_bit_parity():
     assert blocks is not None
     for mip in (0, 3, len(mips) - 1):
         h, w = mips[mip].shape[:2]
-        ours = bc7_jax.decode_blocks_np(blocks[mip])
-        bw = (w + 3) // 4
-        img = ours.reshape(-1, bw, 4, 4).transpose(0, 2, 1, 3)
-        img = img.reshape(-1, bw * 4)[:h, :w]
-        ref = np.ascontiguousarray(mips[mip]).view("<u4")[..., 0]
-        np.testing.assert_array_equal(img, ref, f"mip {mip}")
+        ref = _pil_decode_bc7(blocks[mip].tobytes(), w, h)
+        np.testing.assert_array_equal(mips[mip], ref, f"mip {mip}")
 
 
 def _checker(h, w, seed):
@@ -92,8 +119,8 @@ def _checker(h, w, seed):
 
 def _bc7_texture(name, h, w, kind, wrap_s=0, wrap_t=0, seed=0):
     """A synthetic BC7-backed Texture: mips encoded with the repo's mode-6
-    encoder; the decoded-mips loader PIL-decodes the same blocks so host
-    and device paths see identical content."""
+    encoder; the decoded-mips loader decodes the same blocks so host and
+    device paths see identical content."""
     from renderer_tpu.assets import ntex
     from renderer_tpu.tools import native
 

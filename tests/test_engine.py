@@ -285,7 +285,7 @@ def test_shade_strips_jitted_lax_map_matches():
     """The jitted strip path (tracer stacks -> lax.map over tile-row strips,
     pipeline._shade_striped) must reproduce the unstripped jitted render.
     render_frames_device always runs under jax.jit even in interpret mode,
-    so it exercises the lax.map branch the TPU frame uses; stripping only
+    so it exercises the lax.map branch the GPU frame uses; stripping only
     changes fusion boundaries, so like the scan-vs-single pin this demands
     near-total pixel agreement (ULP-level XLA:CPU contraction differences
     across fusion structures)."""

@@ -1,5 +1,5 @@
 """Frame-stats plumbing: loud bin overflow with automatic capacity regrow,
-and layered-capture saturation counters (the TPU analog of the reference's
+and layered-capture saturation counters (the analog of the reference's
 loud arena-OOM accounting, arena/buffers.rs:126-163 — resource exhaustion
 must never silently drop work)."""
 

@@ -7,6 +7,7 @@ import pytest
 
 import renderer_tpu as rt
 from apps.triangle import build_scene, build_triangle_assets
+from renderer_tpu.core import backend
 from renderer_tpu.parallel import mesh as pmesh
 from renderer_tpu.raster import pipeline
 from renderer_tpu.scene import draw_stream
@@ -38,13 +39,13 @@ def test_sharded_matches_single_device(config):
     renderer, gs, geom, frame, mats, jc = _device_inputs(config)
     single, single_stats = pipeline.render_frame(
         geom, frame, mats, config=config, skin_start=gs.skin_start,
-        joint_cap=jc, interpret=pipeline.interpret_mode(),
+        joint_cap=jc, interpret=backend.interpret_mode(),
     )
     mesh = pmesh.make_mesh(8)
     # jit the sharded step — eager shard_map dispatches per-op multi-device
     # compiles (minutes); one fused compile takes seconds
     sharded, sharded_stats = pmesh.jit_sharded_frame(
-        config, mesh, interpret=pipeline.interpret_mode(), joint_cap=jc
+        config, mesh, interpret=backend.interpret_mode(), joint_cap=jc
     )(geom, frame, mats)
     np.testing.assert_array_equal(
         np.asarray(single_stats), np.asarray(sharded_stats)
@@ -52,6 +53,27 @@ def test_sharded_matches_single_device(config):
     single = np.asarray(single)
     sharded = np.asarray(sharded)
     assert sharded.shape == single.shape
+    agreement = (single == sharded).all(axis=-1).mean()
+    assert agreement > 0.999, f"sharded/single agreement {agreement}"
+
+
+def test_one_device_mesh_unpadded_height_matches_single():
+    """A one-device mesh renders a height that is not a multiple of tile_h
+    (e.g. 1080 rows over 32-row tiles) like the single-device frame."""
+    cfg = rt.RenderConfig(width=128, height=120, tile_h=16).validate()
+    assert cfg.height != cfg.padded_height
+    renderer, gs, geom, frame, mats, jc = _device_inputs(cfg)
+    single, single_stats = pipeline.render_frame(
+        geom, frame, mats, config=cfg, skin_start=gs.skin_start,
+        joint_cap=jc, interpret=backend.interpret_mode(),
+    )
+    sharded, sharded_stats = pmesh.jit_sharded_frame(
+        cfg, pmesh.make_mesh(1), interpret=backend.interpret_mode(),
+        joint_cap=jc)(geom, frame, mats)
+    np.testing.assert_array_equal(np.asarray(single_stats),
+                                  np.asarray(sharded_stats))
+    single, sharded = np.asarray(single), np.asarray(sharded)
+    assert sharded.shape == single.shape == (120, 128, 3)
     agreement = (single == sharded).all(axis=-1).mean()
     assert agreement > 0.999, f"sharded/single agreement {agreement}"
 
@@ -77,7 +99,7 @@ def test_dp_batch_matches_single(config):
             np.asarray(
                 pipeline.render_frame(
                     geom, f, mats, config=config, skin_start=gs.skin_start,
-                    joint_cap=jc, interpret=pipeline.interpret_mode(),
+                    joint_cap=jc, interpret=backend.interpret_mode(),
                 )[0]
             )
         )
@@ -89,7 +111,7 @@ def test_dp_batch_matches_single(config):
         functools.partial(
             pmesh.render_frames_batched,
             config=config, mesh=mesh2, joint_cap=jc,
-            interpret=pipeline.interpret_mode(),
+            interpret=backend.interpret_mode(),
         )
     )(geom, batched, mats)
     out = np.asarray(out)
@@ -109,11 +131,11 @@ def test_interleaved_sharded_matches_single_device(config):
     renderer, gs, geom, frame, mats, jc = _device_inputs(config)
     single, single_stats = pipeline.render_frame(
         geom, frame, mats, config=config, skin_start=gs.skin_start,
-        joint_cap=jc, interpret=pipeline.interpret_mode(),
+        joint_cap=jc, interpret=backend.interpret_mode(),
     )
     mesh = pmesh.make_mesh(8)
     sharded, sharded_stats = pmesh.jit_sharded_frame(
-        config, mesh, interpret=pipeline.interpret_mode(), joint_cap=jc,
+        config, mesh, interpret=backend.interpret_mode(), joint_cap=jc,
         interleave=True,
     )(geom, frame, mats)
     np.testing.assert_array_equal(
@@ -148,7 +170,7 @@ def test_dp_batch_interleaved_right_sized_matches_single(config):
             np.asarray(
                 pipeline.render_frame(
                     geom, f, mats, config=config, skin_start=gs.skin_start,
-                    joint_cap=jc, interpret=pipeline.interpret_mode(),
+                    joint_cap=jc, interpret=backend.interpret_mode(),
                 )[0]
             )
         )
@@ -160,7 +182,7 @@ def test_dp_batch_interleaved_right_sized_matches_single(config):
         functools.partial(
             pmesh.render_frames_batched,
             config=shard_cfg, mesh=mesh2, joint_cap=jc, interleave=True,
-            interpret=pipeline.interpret_mode(),
+            interpret=backend.interpret_mode(),
         )
     )(geom, batched, mats)
     out = np.asarray(out)
@@ -229,7 +251,7 @@ def test_dp_batch_overflow_detected():
         functools.partial(
             pmesh.render_frames_batched,
             config=cfg, mesh=mesh2, joint_cap=jc,
-            interpret=pipeline.interpret_mode(),
+            interpret=backend.interpret_mode(),
         )
     )(geom, batched, mats := renderer._materials())
     bstats = np.asarray(bstats)
@@ -275,11 +297,11 @@ def test_morph_sharded_matches_single_device(config):
     jc = renderer._joint_cap(scene)
     single, single_stats = pipeline.render_frame(
         geom, frame, mats, config=config, skin_start=gs.skin_start,
-        morph_k=gs.morph_k, joint_cap=jc, interpret=pipeline.interpret_mode(),
+        morph_k=gs.morph_k, joint_cap=jc, interpret=backend.interpret_mode(),
     )
     mesh = pmesh.make_mesh(8)
     sharded, sharded_stats = pmesh.jit_sharded_frame(
-        config, mesh, interpret=pipeline.interpret_mode(), morph_k=gs.morph_k,
+        config, mesh, interpret=backend.interpret_mode(), morph_k=gs.morph_k,
         joint_cap=jc,
     )(geom, frame, mats)
     np.testing.assert_array_equal(
@@ -344,11 +366,11 @@ def test_skinned_sharded_matches_single_device():
     jc = renderer._joint_cap(scene)
     single, single_stats = pipeline.render_frame(
         geom, frame, mats, config=cfg, skin_start=gs.skin_start,
-        morph_k=gs.morph_k, joint_cap=jc, interpret=pipeline.interpret_mode(),
+        morph_k=gs.morph_k, joint_cap=jc, interpret=backend.interpret_mode(),
     )
     mesh = pmesh.make_mesh(8)
     sharded, sharded_stats = pmesh.jit_sharded_frame(
-        cfg, mesh, interpret=pipeline.interpret_mode(), morph_k=gs.morph_k,
+        cfg, mesh, interpret=backend.interpret_mode(), morph_k=gs.morph_k,
         joint_cap=jc,
     )(geom, frame, mats)
     np.testing.assert_array_equal(

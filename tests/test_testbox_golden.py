@@ -1,6 +1,6 @@
 """Real-geometry golden: testbox.glb (the reference mount's only asset with
 actual vertex/index/texture bytes — `examples/sandbox/src/testbox/
-testbox.glb`) rendered through the full TPU pipeline and regression-locked
+testbox.glb`) rendered through the full pipeline and regression-locked
 against a checked-in golden, so real bytes flow through vertex stage →
 raster → shade every round, not just through loader tests (round-3 verdict
 item 4). Regenerate deliberately:

@@ -99,7 +99,7 @@ class TestUiComposite:
         font = get_font()
         ui = DrawList()
         ui.add_rect_filled((4, 4), (124, 40), (20, 20, 28, 166))
-        ui.add_text((8, 8), "Hello TPU 123", (220, 220, 230, 255), font, reg)
+        ui.add_text((8, 8), "Hello GPU 123", (220, 220, 230, 255), font, reg)
         img = r.render_frame(scene, debug_mode=1, ui=ui)
         # glyph pixels are bright and neutral (the text color), distinct from
         # both the red scene and the dark window background

@@ -100,6 +100,7 @@ def test_fill_rule_exact_tie_unit():
     band is ~1e-4 px wide)."""
     import jax.numpy as jnp
 
+    from renderer_tpu.core import backend
     from renderer_tpu.raster import binning, raster_kernel
     from renderer_tpu.raster.setup import EPS_ROW, ROWS, VALID_ROW
 
@@ -135,7 +136,7 @@ def test_fill_rule_exact_tie_unit():
     )
     depth, tid = raster_kernel.rasterize_binned(
         binned, starts, counts, padded_height=h, padded_width=w,
-        tile_h=32, tile_w=128, interpret=True,
+        tile_h=32, tile_w=128, interpret=backend.interpret_mode(),
     )
     tid = np.asarray(tid[0])
     # pixel centers at py = row + 0.5; the shared edge sits at py = 32.5
@@ -180,55 +181,6 @@ def test_shared_edge_never_cracks(renderer_and_assets):
         assert holes.size == 0, (
             f"trial {trial} (angle {angle:.3f}): crack pixels at {holes[:5]}"
         )
-
-
-def test_rolled_kernel_matches_unrolled_bitexact():
-    """The visibility kernel's sub-chunk walk is unrolled on TPU (Mosaic
-    static slices) but rolled into a fori_loop in interpret mode to keep
-    test-suite compiles fast (raster_kernel._binned_kernel `unroll`). Both
-    drivers execute the identical per-sub-chunk math in the identical
-    order, so on the same backend they must agree BIT FOR BIT — pinned here
-    on random plane soup at 4 MSAA sample positions, so the interpret-mode
-    suite provably tests the production kernel's semantics."""
-    import jax.numpy as jnp
-
-    from renderer_tpu.raster import binning, raster_kernel
-    from renderer_tpu.raster.setup import EPS_ROW, VALID_ROW
-    from tests.test_binning_and_skinning import _fake_tri_data
-
-    rng = np.random.default_rng(31)
-    tiles_x, tiles_y, tile_w, tile_h = 2, 2, 128, 32
-    n, tc = 300, 512  # > CHUNK so the chunk loop runs more than once
-    td = _fake_tri_data(rng, n, tc, tiles_x, tiles_y, tile_w, tile_h)
-    # random edge/depth/1w planes scaled so a fair share of pixels get
-    # covered and depth-contested
-    for r in range(15):
-        td[r, :n] = (rng.normal(size=n) * 0.02).astype(np.float32)
-    td[2, :n] += 2.0   # edge C offsets: keep many triangles open
-    td[5, :n] += 2.0
-    td[8, :n] += 2.0
-    td[11, :n] = rng.uniform(0.0, 1.0, n)  # depth plane C in range
-    td[14, :n] = 1.0   # 1/w positive
-    td[EPS_ROW, :n] = 1e-5
-    td[VALID_ROW, :n] = 1.0
-
-    binned, starts, counts, ov = binning.bin_triangles(
-        jnp.asarray(td), 0, n,
-        tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w, tile_h=tile_h,
-        pair_capacity=4096,
-    )
-    assert int(ov) == 0
-    spos = ((0.25, 0.25), (0.75, 0.25), (0.25, 0.75), (0.75, 0.75))
-    kw = dict(padded_height=tiles_y * tile_h, padded_width=tiles_x * tile_w,
-              tile_h=tile_h, tile_w=tile_w, sample_positions=spos,
-              interpret=True)
-    z_roll, t_roll = raster_kernel.rasterize_binned(
-        binned, starts, counts, unroll=False, **kw)
-    z_unroll, t_unroll = raster_kernel.rasterize_binned(
-        binned, starts, counts, unroll=True, **kw)
-    assert (np.asarray(t_roll) >= 0).sum() > 500, "scene degenerate"
-    np.testing.assert_array_equal(np.asarray(t_roll), np.asarray(t_unroll))
-    np.testing.assert_array_equal(np.asarray(z_roll), np.asarray(z_unroll))
 
 
 def test_huge_extent_shared_edge_stays_watertight(renderer_and_assets):

@@ -12,7 +12,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp
 
 import renderer_tpu as rt
-from renderer_tpu.core import math3d
+from renderer_tpu.core import backend, math3d
 from renderer_tpu.raster import binning, pipeline, raster_kernel, setup
 
 TILES_X, TILES_Y, TILE_W, TILE_H = 2, 4, 128, 16
@@ -49,7 +49,7 @@ def _raster(td, n, zbuckets, sample_positions=((0.5, 0.5),)):
         binned, s[0], c[0],
         padded_height=H, padded_width=W, tile_h=TILE_H, tile_w=TILE_W,
         sample_positions=sample_positions,
-        interpret=pipeline.interpret_mode(),
+        interpret=backend.interpret_mode(),
     )
     return np.asarray(depth), np.asarray(tid)
 

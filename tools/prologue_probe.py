@@ -4,7 +4,7 @@ the analog of the reference's ~120 µs CPU frame cost (README.md:85-87:
 ~20 µs queue + ~100 µs Vulkan submission).
 
 Pure host work — forces the CPU platform and never dispatches, so it can
-run without the TPU (and without poisoning any TPU timing).
+run without the device (and without disturbing any device timing).
 
 Run: python -m tools.prologue_probe [reps]
 """

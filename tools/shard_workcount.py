@@ -1,4 +1,4 @@
-"""Multichip binning work-count probe (CPU, no TPU needed).
+"""Multi-device binning work-count probe (CPU, no accelerator needed).
 
 Measures how the binning work (the one frame stage that used to be fully
 replicated across devices) divides under the sp tile-row sharding

@@ -1,11 +1,11 @@
-"""Startup measurement (STARTUP.md source): one JSON line of end-to-end
-cold/warm startup stages for the sandbox app.
+"""Startup measurement: one JSON line of end-to-end cold/warm startup
+stages for the sandbox app.
 
 Stages: python+jax import, renderer_tpu+apps import, asset load (glTF parse
 + lazy texture headers), atlas open (bundle cache hit or full BC7 decode),
 first frame dispatch (XLA compile cache decides warm/cold).
 
-Run (TPU): python -m tools.startup_probe            # warm caches
+Run (GPU): python -m tools.startup_probe            # warm caches
            RENDERER_TPU_CACHE=/tmp/coldcache python -m tools.startup_probe
                                                     # cold atlas decode
 """

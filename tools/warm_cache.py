@@ -1,8 +1,8 @@
 """Precompile the whole config matrix into the persistent XLA compile cache.
 
-Cold TPU compiles of the frame function are 2-6 minutes each on this
-runtime (STARTUP.md); the persistent cache (`.cache/jax`, enabled by every
-Renderer — engine/renderer.py _enable_compilation_cache) makes later
+Cold compiles of the frame function take about a minute each on the GPU;
+the persistent cache (`.cache/jax` or $JAX_COMPILATION_CACHE_DIR, enabled
+by every Renderer — engine/renderer.py _enable_compilation_cache) makes later
 processes near-instant, but only for executables that were ACTUALLY
 compiled once. This tool walks every BASELINE/apps config plus the bench
 configurations through ONE real dispatch each, sequentially, so a fresh
@@ -70,4 +70,4 @@ if __name__ == "__main__":
     main(int(sys.argv[1]) if len(sys.argv) > 1 else 1)
     import os
 
-    os._exit(0)  # tunneled runtimes: never hang process exit on a handle
+    os._exit(0)  # never hang process exit on a handle
